@@ -90,11 +90,7 @@ def main(argv=None):
     ap.add_argument("--coarse-cheb-lower", type=float, default=None)
     ap.add_argument("--coarse-pack", type=int, default=1,
                     help="macro-pack factor for coarse stencil levels "
-                         "(bit-exact relabeling; single-chip only)")
-    ap.add_argument("--dist-ghost-frac", type=float, default=0.25,
-                    help="distributed ghost-zone redundancy cap "
-                         "(config.dist_ghost_max_frac; chunks smoothing "
-                         "phases between ring exchanges)")
+                         "(bit-exact relabeling; single-device only)")
     ap.add_argument("--cycle-type", type=str, default="v",
                     choices=["v", "w"])
     ap.add_argument("--restrictor", type=str, default="linear",
@@ -111,12 +107,15 @@ def main(argv=None):
                          "distributed stencil solver (0 = serial)")
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (the JAX_PLATFORMS env var "
-                         "is overridden by TPU plugins in some setups)")
+                    help="run on the CPU backend even when an accelerator "
+                         "is present")
     args = ap.parse_args(argv)
 
+    import jax
+
+    from .utils import compile_cache
+    compile_cache.configure()
     if args.cpu:
-        import jax
         jax.config.update("jax_platforms", "cpu")
 
     import numpy as np
@@ -127,7 +126,6 @@ def main(argv=None):
 
     dtype = "float64" if args.f64 else "float32"
     if args.f64:
-        import jax
         jax.config.update("jax_enable_x64", True)
 
     def load_mesh():
@@ -231,7 +229,6 @@ def _dispatch(args, out, dtype, load_mesh, problem_fns):
             coarse_cheb_degree=args.coarse_cheb_degree,
             coarse_cheb_lower=args.coarse_cheb_lower,
             coarse_pack=args.coarse_pack,
-            dist_ghost_max_frac=args.dist_ghost_frac,
             physics=Physics(k=args.k, u=tuple(args.u),
                             advection=any(args.u),
                             surface_terms=not args.no_surface_terms),
@@ -285,9 +282,9 @@ def _dispatch(args, out, dtype, load_mesh, problem_fns):
                 T = jnp.asarray(T_np)
                 out["resumed_from_step"] = start
             hist = []
-            # transposed fast path (mode 9): the state stays in the TPU
-            # layout across steps; layout conversion happens only for
-            # IO events, not per step (SemiSolver.run's strategy)
+            # transposed fast path (mode 9): the state stays in the
+            # transposed layout across steps; layout conversion happens
+            # only for IO events, not per step (SemiSolver.run's strategy)
             use_t = args.mode == 9 and getattr(solver, "_use_t_cycle",
                                                False)
             if use_t:
@@ -335,8 +332,8 @@ def _run_distributed(args, out, mesh, cfg):
     The raw mesh is passed straight through: DistributedStencilSolver
     RCM-reorders it itself in __init__ (stencil_solver.py, the
     ``reorder_elements(mesh, rcm_order(mesh))`` line) — the CLI path gets
-    the same banded layout (and therefore the same ghost depths) as the
-    benched configuration.  The solver also pads the macro axis, so
+    the same banded layout (and therefore the same halo widths) as the
+    library path.  The solver also pads the macro axis, so
     VTU/error output goes through its own to_std()/error() helpers.
     """
     import numpy as np

@@ -1,6 +1,6 @@
 """Flat DG adjacency for the semi-structured hierarchy.
 
-TPU-first redesign of the reference's halo machinery: instead of mutable
+Redesign of the reference's halo machinery: instead of mutable
 per-macro-element overlap buffers filled by ``update_overlaps``
 (/root/reference/splitting.F90:1210-1398) and neighbor surface maps
 ``get_surface_ele`` (:194-390), every level of the hierarchy is described by

@@ -66,3 +66,21 @@ def tri_mesh(no_ele_row: int, no_ele_col: int, dx: float, dy: float
             tris.append([vid(i, j + 1), vid(i + 1, j), vid(i + 1, j + 1)])
     triangles = np.asarray(tris, np.int32)
     return build_macro_mesh(vertices, triangles)
+
+
+def stretched_mesh(rows: int = 64, cols: int = 64, aspect: float = 3.0
+                   ) -> MacroMesh:
+    """RCM-ordered mesh of ``2*rows*cols`` right triangles stretched
+    ``aspect``:1 (legs ``aspect*h`` by ``h``, h = 1/cols) on
+    [0, aspect*rows*h] x [0, 1].
+
+    The default (8,192 macros, 3:1) is the generated stand-in for the
+    reference's ``untitled8192.msh`` benchmark mesh, whose stretched
+    triangles are what make the strength-filtered aggregation
+    (``SemiConfig.amg``) necessary.  RCM keeps cross-macro neighbours
+    within a narrow index band (``topology.rcm_order``).
+    """
+    from . import topology
+
+    h = 1.0 / cols
+    return topology.rcm_reorder(tri_mesh(rows, cols, aspect * h, h))

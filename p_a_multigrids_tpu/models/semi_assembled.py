@@ -109,24 +109,22 @@ class AssembledSemiSolver(semi.SemiSolver):
     908-1365): the reference assembles the CSR system once and then smooths
     it with damped Jacobi over ``csr_mul_array`` (:1095-1170, solve_Jacobi
     :491-497).  Here ``_step`` runs ``n_multigrid * n_smooth`` damped
-    block-Jacobi sweeps whose residuals come from the BSR SpMV (the Pallas
-    banded kernel where the layout allows, ops/pallas_bsr) — exact 3x3
-    block solves instead of the reference's lumped point diagonal
+    block-Jacobi sweeps whose residuals come from the BSR SpMV
+    (ops/bsr.BSR.spmv) — exact 3x3 block solves instead of the reference's lumped point diagonal
     (get_diagonal :481-486), same omega damping.  Verified equal to the
     stencil path's smooth_jacobi in f64 (tests/test_assembled.py)."""
 
     def __init__(self, problem: semi.SemiProblem):
         # SLIM setup — deliberately NOT super().__init__: mode 10 iterates
-        # only on the assembled fine operator, so the flagship's phase
-        # kernels, agg/AMG hierarchy, coarse dense inverse and spectral
-        # estimates are all dead weight here (VERDICT r3 weak #7).  Only
+        # only on the assembled fine operator, so the flagship's agg/AMG
+        # hierarchy, coarse dense inverse and spectral estimates are all
+        # dead weight here.  Only
         # the level-0 analytic stencil is built (host numpy) — it supplies
         # the exact block diagonal and backs convergence()/diagnostics.
         self.p = problem
         self.cfg = cfg = problem.cfg
         self._gather = semi.structured_gather
         self._fused = None
-        self._phase = None
         self._agg = None
         self._agg_li = None
         self._coarse_inv = self._coarse_inv_t = None
@@ -142,13 +140,7 @@ class AssembledSemiSolver(semi.SemiSolver):
                                        cfg.dt, cfg.theta)
         self.offset = affine_offset(problem.levels[0], cfg.physics, cfg.dt,
                                     cfg.theta)
-        # Pallas banded SpMV when the mesh order allows it (ops/pallas_bsr);
-        # transparently the XLA gather path otherwise
-        from ..ops.pallas_bsr import spmv_fast
-        C = problem.levels[0]["updown"].shape[0]
-        self._spmv = spmv_fast(self.A_bsr,
-                               interpret=jax.default_backend() == "cpu",
-                               group=C)
+        self._spmv = self.A_bsr.spmv
         self._step = jax.jit(self._make_assembled_step())
 
     def run(self, T=None, ntime: int | None = None):

@@ -8,7 +8,7 @@ Covers:
 - mode 6 ``diffusion`` (amin.F90:15) — advection-diffusion with
   interior-penalty surface diffusion.
 
-TPU-first structure: plain DG on a macro mesh is the semi-structured
+Structure: plain DG on a macro mesh is the semi-structured
 hierarchy at split depth 0 (one child per element), so every driver here is
 a thin configuration of models.semi — same batched operator, same smoothers.
 The reference's "implicit" modes assemble a global CSR, densify it and call

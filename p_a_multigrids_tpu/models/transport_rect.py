@@ -4,7 +4,7 @@ Re-design of ``trans_rec`` (/root/reference/transport_rect.F90:7-379):
 bilinear-quad DG with upwind face fluxes and per-element mass solves,
 validated against the translated-box analytical solution (:100-111).
 
-TPU-first: the reference recomputes quad Jacobians, face geometry and the
+Structure: the reference recomputes quad Jacobians, face geometry and the
 upwind switch per element per face inside its triple time/nonlinearity/
 element loop (:122-312).  Here geometry is computed once for the whole mesh
 (it is static), neighbors are static index arrays, and one time step is a

@@ -4,12 +4,12 @@ The reference stores its operators in a hand-rolled CSR with *preallocated
 fixed sparsity* — a diagonal nloc x nloc block per element plus at most one
 block per face (`make_sparse_matrix*` /root/reference/matrices.F90:333-1411,
 fill via `add_to_CSR[_flux]` :1412-1451 which scans a <=9-entry window and
-silently drops out-of-pattern entries).  The TPU-native equivalent is an
+silently drops out-of-pattern entries).  The equivalent here is an
 ELL/BSR layout with a static degree K = 1 + nface: every block row holds
 exactly K column blocks (self first, then faces, padded with zero blocks
 pointing at the row itself).  Fixed degree means SpMV is a dense gather +
-batched small matmul — fully regular, no atomics, MXU/VPU friendly — and the
-"scatter" of assembly becomes pure array construction.
+batched small matmul — fully regular, no atomics — and the "scatter" of
+assembly becomes pure array construction.
 """
 
 from __future__ import annotations

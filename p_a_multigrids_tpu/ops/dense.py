@@ -5,7 +5,7 @@ binary, but part of the documented solver inventory: solver_gauss :40,
 solver_Thomas :387, solver_BlockThomas :352, fact_PLU/solver_PLU :502,482)
 and of matrices.F90's FINDInv Gauss-Jordan inverse (:1618-1716).
 
-On TPU, small dense solves go through jnp.linalg (LAPACK-grade, batched);
+Small dense solves go through jnp.linalg (LAPACK-grade, batched);
 the tridiagonal and block-tridiagonal solvers are sequential recurrences
 expressed with lax.scan so they jit into single fused loops.
 """

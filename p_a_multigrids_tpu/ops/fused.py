@@ -1,15 +1,12 @@
-"""Transposed-layout fused operator — the TPU fast path.
+"""Transposed-layout fused operator — the fast path above the stencil cap.
 
-TPU vector tiles are (8, 128) over the two minor dimensions, so arrays
-shaped (U, C, 3) or (U, C, 3, sngi) waste up to ~40x of every tile on the
-tiny trailing node/quadrature axes.  Measured on untitled8192 (U=8192,
-C=16): the einsum-per-term operator costs 17 ms/application while its
-volume part alone takes 0.5 ms.
+Arrays shaped (U, C, 3) or (U, C, 3, sngi) put the tiny node/quadrature
+axes minor, so every elementwise pass strides over 3-wide rows.
 
 This module computes the identical operator in the transposed layout
 ``Tt[node, child, U]`` with the wide U axis minor: every contraction over
 nodes/faces/quadrature points becomes a short static Python loop of
-(C, U)-shaped fused multiply-adds (perfect tiles), the intra-macro
+(C, U)-shaped fused multiply-adds (unit stride), the intra-macro
 neighbor exchange is a static row gather from the (3C, U) plane, and only
 the 3*2**s cross-macro strip values per macro element use per-U gathers.
 

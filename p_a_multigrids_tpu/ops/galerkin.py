@@ -10,7 +10,7 @@ is macro-local and A couples only face neighbors, the coarse sparsity is
 exactly the fine pattern (self + 3 faces + boundary-strip cross blocks),
 so the product reduces to accumulating 3x3 congruence transforms
 pw^T B pw over the fine stencil — no dynamic sparsity anywhere
-(SURVEY.md section 7 "SpGEMM (R.A.P) in Pallas": the pattern is static, so
+(SURVEY.md section 7, "SpGEMM (R.A.P)": the pattern is static, so
 values are a setup-time batched contraction).
 
 For scale-invariant physics (surface_terms=False: mass + volume

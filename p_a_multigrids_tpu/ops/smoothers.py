@@ -2,7 +2,7 @@
 
 The reference's solver menu (transport_tri_semi.F90:491-518): weighted
 Jacobi (omega=0.8, :140), "Gauss-Seidel" (in-place element sweep) and
-Richardson.  Sequential GS does not map to SIMD hardware; the TPU-native
+Richardson.  Sequential GS does not map to SIMD hardware; the data-parallel
 replacements are:
 
 - ``jacobi``: damped Jacobi, identical fixed point;
@@ -34,8 +34,8 @@ def chebyshev_roots(lam_max: float, degree: int,
     product-form sweep x <- x + (1/r_k) M^-1 (b - A x), interleaved
     large/small so intermediate amplification stays bounded in f32.
 
-    This is THE Chebyshev schedule of every solver in the package (serial,
-    fused-Pallas, and distributed smoothers all consume it) — measured
+    This is THE Chebyshev schedule of every solver in the package (serial
+    and distributed smoothers both consume it) — measured
     two-grid rho ~0.36 vs ~0.67 for damped block-Jacobi at equal cost.
     """
     a_, b_ = lower * lam_max, lam_max
@@ -70,8 +70,8 @@ def chebyshev(apply_A: Callable, b: jax.Array, x: jax.Array,
 def block_jacobi_inv(apply_A: Callable, b: jax.Array, x: jax.Array,
                      inv_blocks: jax.Array, omega: float = 1.0,
                      sweeps: int = 1) -> jax.Array:
-    """block_jacobi with PRE-INVERTED diagonal blocks (setup-time inverse
-    beats per-sweep linalg.solve on TPU)."""
+    """block_jacobi with PRE-INVERTED diagonal blocks (a setup-time
+    inverse instead of a linalg.solve in every sweep)."""
     def body(x, _):
         r = b - apply_A(x)
         return x + omega * jnp.einsum("...ij,...j->...i", inv_blocks, r), None

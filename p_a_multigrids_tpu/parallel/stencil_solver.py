@@ -1,51 +1,38 @@
-"""Distributed stencil V-cycle — the FAST multi-chip path.
+"""Distributed stencil V-cycle — the multi-device path.
 
 Shards the transposed block-stencil operator (ops/stencil) over a 1-D
 device mesh along the macro axis, after RCM-ordering the macro elements so
 every element's cross-macro strip sources lie within a band of width W
-(measured 63 on untitled8192).  The halo exchange is then a handful of
-neighbor ``ppermute``s per operator application — the TPU-native form of
-the reference's ``update_overlaps`` boundary-strip writes
-(/root/reference/splitting.F90:1210-1398).
+(measured 63 on an 8192-macro unstructured mesh).  The halo exchange is
+then a handful of neighbor ``ppermute``s per operator application — the
+collective form of the reference's ``update_overlaps`` boundary-strip
+writes (/root/reference/splitting.F90:1210-1398).
 
-Round 4 makes the PRODUCTION configuration multi-chip (VERDICT r3 #1):
-
-- **Fused Pallas phase kernels inside shard_map** via extended domains:
-  each device holds its U_loc macros plus a halo of ``He = (rounds+1) * W``
-  macros on each side.  One ring exchange fills the halo, then the
-  unmodified serial phase kernel (ops/pallas_stencil) runs all rounds of a
-  smoothing phase on the extended domain — halo rows are smoothed
-  redundantly, and after R rounds the interior U_loc rows are BIT-EXACTLY
-  what the serial kernel produces (the classic deep-ghost-zone trick;
-  overhead 2*He/U_loc vanishes at production per-chip sizes).  Per-device
-  extended coefficient tables are stacked on a leading device axis and fed
-  through ``PhaseOperator.phase_with`` as sharded arguments.
+- **Smoothing inside shard_map**: every Chebyshev/block-Jacobi round and
+  every residual evaluation exchanges a width-W strip halo with the ring
+  neighbours, then runs the same plane arithmetic as the serial
+  ``StencilOperator`` on the local U_loc macros.
 - **Distributed smoothed-aggregation correction** (amg / coarse_agg): the
   level-0 restriction runs as per-device partial products reduced by one
   ``psum``; deeper (small) aggregation levels shard block rows and keep
   the iterate replicated via ``all_gather`` after each apply — 1-D
   row-parallel SpMV, no halo logic needed on the algebraic levels.
 - **k-hop ring halos** (``_ring_halo``): halo windows wider than one shard
-  no longer hard-fail; ``ceil(H / U_loc)`` neighbor ppermutes fill any
-  window (wrap-around blocks land only on positions that map to clamped
-  out-of-domain rows, which nothing reads).
+  are filled by ``ceil(H / U_loc)`` neighbor ppermutes (wrap-around blocks
+  land only on positions that nothing reads).
 
 Everything else is macro-local: multigrid transfers never communicate, and
 the coarsest solve either runs replicated (dense inverse after one
 all_gather) or smooths shard-locally.
 
-Multi-host (the DCN axis, SURVEY §2/§5): pass ``mesh_shape=(hosts,
-chips)`` and the solver builds the 2-D ``Mesh(devices.reshape(h, c),
-("host", "dp"))`` with the RCM ring flattened row-major over both axes —
-contiguous RCM blocks per host, per-chip blocks within a host.  All
-collectives run over the axis TUPLE (ppermute/psum/all_gather/axis_index
-address the flattened ring), so every ring exchange is nearest-neighbor:
-only the two block-boundary chips of each host pair talk across DCN (one
-strip message per round), everything else rides ICI, and the SA
-correction's psum/all_gather are hierarchical by XLA default.  The
-numerics are mesh-shape-invariant (tests assert 1-D vs 2-D bit equality);
-this environment has one real chip, so the 2-D mesh is exercised on the
-virtual-device dryrun.
+Multi-host: pass ``mesh_shape=(hosts, chips)`` and the solver builds the
+2-D ``Mesh(devices.reshape(h, c), ("host", "dp"))`` with the RCM ring
+flattened row-major over both axes — contiguous RCM blocks per host,
+per-chip blocks within a host.  All collectives run over the axis TUPLE
+(ppermute/psum/all_gather/axis_index address the flattened ring), so every
+ring exchange is nearest-neighbor: only the two block-boundary chips of
+each host pair talk across hosts.  The numerics are mesh-shape-invariant
+(tests assert 1-D vs 2-D bit equality).
 """
 
 from __future__ import annotations
@@ -59,7 +46,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..config import SemiConfig, Solver
 from ..mesh import splitting, topology
 from ..models import semi
-from ..ops.stencil import StencilData, StencilOperator
 from . import partition
 
 _AXIS = "dp"
@@ -135,16 +121,15 @@ def _ring_halo(x, H: int, n_dev: int, axis: int = -1, axes=_AXIS):
     """(left, right) width-H halos along ``axis`` via k-hop ring ppermutes.
 
     ``ceil(H / U_loc)`` neighbor hops per side; blocks that wrap around the
-    ring carry garbage, but they land only on positions that map (after the
-    extended-domain clamp) to out-of-domain rows, which nothing reads —
-    see the module docstring.  This is the relaxation of round 3's hard
-    ``W <= U_loc`` constraint (VERDICT r3 #7).
+    ring carry garbage, but they land only on window positions that no
+    strip source points at (sources lie within W of their row, inside the
+    domain).
 
     ``axes`` is the mesh axis name — or a TUPLE of names for a 2-D
     (hosts, chips) mesh, over which ppermute indices address the
     row-major-flattened ring: chips within a host are ring neighbors and
     only the two host-boundary chips of each host pair exchange across
-    the outer (DCN) axis.
+    the outer axis.
     """
     x = jnp.moveaxis(x, axis, -1)
     U_loc = x.shape[-1]
@@ -166,8 +151,8 @@ def _ring_halo(x, H: int, n_dev: int, axis: int = -1, axes=_AXIS):
 def _strip(tab, meta, x_t, W: int, n_dev: int, axes=_AXIS):
     """Window halo exchange + local strip selection -> (3, nb, U_loc).
 
-    Ring ppermutes of the packed strip rows; issued first so XLA overlaps
-    the ICI transfer with the interior compute that follows.
+    Ring ppermutes of the packed strip rows; issued first so XLA can
+    overlap the transfer with the interior compute that follows.
     """
     nbc, m = meta["nbc"], meta["m"]
     U_loc = x_t.shape[-1]
@@ -227,35 +212,13 @@ def _sweep(tab, meta, x_t, bp_t, coefs, W, n_dev, axes=_AXIS):
     return x_t
 
 
-def _ext_data(data: StencilData, U: int, C: int, lo: int,
-              U_ext: int) -> StencilData:
-    """Per-device extended-domain slice of a level's stencil blocks.
-
-    Rows are globals ``clamp(lo + [0, U_ext), 0, U-1)``; out-of-domain
-    positions duplicate edge rows — their outputs are discarded and (by
-    construction of the remapped halo_src) their values are never read by
-    interior rows.
-    """
-    rows = np.clip(np.arange(lo, lo + U_ext), 0, U - 1)
-    hs = np.asarray(data.halo_src)[rows]                 # (U_ext, nb) global
-    src_u = np.clip(hs // C - lo, 0, U_ext - 1)          # ext coords
-    hs_ext = src_u * C + hs % C
-    return StencilData(
-        self_blocks=data.self_blocks[rows],
-        face_blocks=data.face_blocks[rows],
-        cross_blocks=data.cross_blocks[rows],
-        c_aff=data.c_aff[rows], halo_src=hs_ext,
-        bnd_c=data.bnd_c, bnd_f=data.bnd_f,
-        intra_onehot=data.intra_onehot, cross_onehot=data.cross_onehot)
-
-
 class DistributedStencilSolver:
     """Sharded counterpart of SemiSolver's transposed stencil V-cycle."""
 
     def __init__(self, mesh: topology.MacroMesh, cfg: SemiConfig,
                  devices=None, mesh_shape=None):
         """``mesh_shape=(hosts, chips)`` builds the 2-D device mesh of the
-        multi-host (DCN) deployment: the RCM ring is flattened row-major
+        multi-host deployment: the RCM ring is flattened row-major
         over ("host", "dp"), every collective runs over the axis tuple,
         and the table shardings shard the macro axis over both axes —
         contiguous RCM blocks per host, per-chip blocks within a host
@@ -268,10 +231,9 @@ class DistributedStencilSolver:
                              "Chebyshev or block-Jacobi smoother")
         if cfg.coarse_pack > 1:
             raise ValueError(
-                "coarse_pack is a single-chip layout optimization; the "
-                "distributed level tables assume unpacked levels — run "
-                "with coarse_pack=1 (sharding already amortizes the "
-                "coarse level's per-step floor across chips)")
+                "coarse_pack is a single-device layout; the distributed "
+                "level tables assume unpacked levels — run with "
+                "coarse_pack=1")
         devices = devices if devices is not None else jax.devices()
         D = len(devices)
         if mesh_shape is not None:
@@ -297,8 +259,8 @@ class DistributedStencilSolver:
 
         self.cfg = cfg
         self.p = semi.build_problem(mesh, cfg)
-        # the serial twin builds the SAME algorithm (incl. phase kernels and
-        # the agg/AMG hierarchy) — parity tests compare against it, and the
+        # the serial twin builds the SAME algorithm (incl. the agg/AMG
+        # hierarchy) — parity tests compare against it, and the
         # distributed tables below are derived from its stencil/agg data
         self.serial = semi.SemiSolver(self.p)
         if self.serial._stencil is None:
@@ -331,151 +293,10 @@ class DistributedStencilSolver:
             nl - 1, cfg.coarse_sweeps if nl > 1 else cfg.n_smooth)
 
         self._agg_li = self.serial._agg_li
-        self._phases = self._build_phases()
         self._atabs_host, self._aspecs, self._ameta = self._build_agg_dist()
 
         self._put_tables()
         self._step = self._build_step()
-
-    # -- setup: extended-domain phase kernels --------------------------------
-    def _build_phases(self):
-        """Per-level fused Pallas phase kernels for the sharded cycle.
-
-        Returns a list (per level) of ``dict(ker, He, chunk, tabs,
-        specs)`` or None entries; ``tabs`` are the per-device extended-
-        domain tables stacked on a leading device axis.
-
-        Ghost-depth policy (VERDICT r4 #1b): a phase of R rounds run as
-        ONE kernel needs He = (R+1)*W and re-smooths 2*He/U_loc redundant
-        ghost rows every round.  When that exceeds
-        ``cfg.dist_ghost_max_frac``, rounds are CHUNKED into groups of
-        ``chunk`` (largest k with 2*(k+1)*W within the cap, min 1): the
-        ring exchange refills a (k+1)*W halo between groups, the interior
-        stays bit-exact, and redundant smoothing drops ~R/chunk-fold at
-        the cost of R/chunk messages (same per-message volume class).
-        ``ghost_report()`` quantifies the choice per level.
-        """
-        cfg = self.cfg
-        interp = jax.default_backend() == "cpu"
-        use = cfg.pallas_phase
-        if use is None:
-            use = not interp
-        if not use:
-            return None
-        from ..ops import pallas_stencil as _ps
-        nl = len(self.serial._stencil)
-        out = []
-        for li, op in enumerate(self.serial._stencil):
-            R = len(self._coefs[li])
-            if li == nl - 1:
-                R = max(R, len(self._coefs_coarse))
-            Wr = self.meta[li]["W"]
-            if self.D == 1 or Wr == 0:
-                chunk, He_fin, He_mid = R, 0, 0
-            else:
-                cap = max(cfg.dist_ghost_max_frac, 0.0) * self.U_loc
-                ks = [k for k in range(1, R + 1)
-                      if 2 * (k + 1) * Wr <= cap]
-                chunk = max(ks) if ks else 1
-                # final-chunk geometry carries the +1 band for the z
-                # (residual) round; NON-final chunks only advance x, so
-                # k*W ghost rows suffice — at chunk=1 this HALVES the
-                # redundant smoothing of every round but the last
-                He_fin = min((chunk + 1) * Wr, self.U)
-                He_mid = min(chunk * Wr, self.U)
-
-            def build_geom(He):
-                U_ext = self.U_loc + 2 * He
-                kers = None
-                wmin = 0
-                for _ in range(6):
-                    ops_d = [StencilOperator(
-                        _ext_data(op._data, self.U, op.C,
-                                  d * self.U_loc - He, U_ext), self.dtype)
-                        for d in range(self.D)]
-                    kers = [_ps.make_phase(o, interpret=interp,
-                                           impl=cfg.phase_impl, wmin=wmin)
-                            for o in ops_d]
-                    if any(k is None for k in kers):
-                        raise ValueError("no feasible phase kernel")
-                    assert len({type(k) for k in kers}) == 1, \
-                        "per-device kernels picked different impls"
-                    Ws = {k.W for k in kers}
-                    if len(Ws) == 1:
-                        break
-                    wmin = max(Ws)
-                else:
-                    raise ValueError("band width did not unify across "
-                                     "devices")
-                host = [k.arg_tables_host() for k in kers]
-                stacked = {key: np.stack([h[key] for h in host])
-                           for key in host[0]}
-                return kers[0], stacked
-
-            try:
-                ker, tabs = build_geom(He_fin)
-                entry = dict(ker=ker, He=He_fin, chunk=chunk, tabs=tabs,
-                             specs={key: P(_AXIS) for key in tabs})
-                # a mid-chunk geometry pays off only when phases actually
-                # split AND the band shrink is real
-                if chunk < R and He_mid < He_fin:
-                    ker_m, tabs_m = build_geom(He_mid)
-                    entry.update(
-                        ker_mid=ker_m, He_mid=He_mid, tabs_mid=tabs_m,
-                        specs_mid={key: P(_AXIS) for key in tabs_m})
-            except ValueError as e:
-                print(f"distributed pallas_phase disabled at level {li}: "
-                      f"{e}")
-                out.append(None)
-                continue
-            out.append(entry)
-        if all(p is None for p in out):
-            return None
-        return out
-
-    def ghost_report(self):
-        """Per-level deep-ghost cost of the sharded phase kernels.
-
-        ``redundant_frac``: the ROUND-AVERAGED fraction of extra ghost
-        rows each smoothing round processes relative to this shard's
-        interior — non-final chunks run on the He_mid = chunk*W geometry
-        (x only), the final chunk on He = (chunk+1)*W (it also emits the
-        residual) — the distributed design's redundant-work overhead,
-        reported explicitly so scaling artifacts carry it (VERDICT r4
-        #1a).  ``n_exchanges`` is ring messages per phase (1 = classic
-        deep ghost).  Entries are None for disabled levels.
-        """
-        out = []
-        for li, ph in enumerate(self._phases or []):
-            if ph is None:
-                out.append(None)
-                continue
-            R = len(self._coefs[li])
-            if li == len(self.tabs) - 1:
-                R = max(R, len(self._coefs_coarse))
-            chunk = ph["chunk"]
-            He, He_mid = ph["He"], ph.get("He_mid", ph["He"])
-            n_mid_rounds = max(R - chunk, 0) if "ker_mid" in ph else 0
-            avg = (2.0 * (n_mid_rounds * He_mid
-                          + (R - n_mid_rounds) * He)
-                   / max(R, 1) / self.U_loc)
-            out.append(dict(
-                level=li, W=int(self.meta[li]["W"]), He=int(He),
-                He_mid=int(He_mid), chunk=int(chunk), rounds=int(R),
-                U_loc=int(self.U_loc),
-                redundant_frac=round(avg, 4),
-                n_exchanges=int(-(-R // chunk))))
-        return out
-
-    def _phase_specs(self):
-        """Per-level (specs, specs_mid|None) matching ptabs_dev's layout
-        — shared by _put_tables/_build_step and the bench scripts."""
-        return tuple((ph["specs"], ph.get("specs_mid")) if ph else None
-                     for ph in (self._phases or []))
-
-    def _phase_tabs_host(self):
-        return [(ph["tabs"], ph.get("tabs_mid")) if ph else None
-                for ph in (self._phases or [])]
 
     # -- setup: distributed aggregation hierarchy ----------------------------
     def _build_agg_dist(self):
@@ -484,8 +305,11 @@ class DistributedStencilSolver:
         Level-0 transfers: restriction as per-device partial products over
         local fine columns (compacted slots) reduced by psum; prolongation
         as a local fine-row slice reading the replicated coarse iterate.
-        Aggregation levels: block rows sharded (padded to D), iterate
-        replicated via all_gather.
+        For symmetric physics these are the FACTORED tentative transfers
+        of the serial solver (``SemiSolver._agg_correct_t``), whose
+        smoothing factor runs through the sharded stencil apply; otherwise
+        the stored smoothed ones.  Aggregation levels: block rows sharded
+        (padded to D), iterate replicated via all_gather.
         """
         h = self.serial._agg
         if h is None:
@@ -498,8 +322,12 @@ class DistributedStencilSolver:
         E_loc = self.U_loc * C_li
 
         lvl0 = h.levels[0]
-        r_cols = np.asarray(lvl0.r_cols)                 # (na, Dr) fine ids
-        r_vals = np.asarray(lvl0.r_vals)
+        factored = h.fine is not None and not self.cfg.physics.advection
+        tr = h.fine if factored else dict(
+            r_cols=lvl0.r_cols, r_vals=lvl0.r_vals, p_cols=lvl0.p_cols,
+            p_vals=lvl0.p_vals)
+        r_cols = np.asarray(tr["r_cols"])                # (na, Dr) fine ids
+        r_vals = np.asarray(tr["r_vals"])
         na = lvl0.n
         N0 = len(np.asarray(lvl0.cols))
         # compacted per-device restriction slots (only local fine columns)
@@ -509,9 +337,9 @@ class DistributedStencilSolver:
         Npad0 = D * (-(-N0 // D))
         rc_cols = np.zeros((D, Npad0, Dr_c), np.int32)
         rc_vals = np.zeros((D, Npad0, Dr_c, 3, 3), dt)
-        # vectorized slot packing (the r4 Python triple loop over
-        # D x na x members measured minutes at U=8192/D=8 — VERDICT r4
-        # weak #8): stable-sort each row's slots by owning device; the
+        # vectorized slot packing (a Python loop over D x na x members
+        # takes minutes at U=8192): stable-sort each row's slots by owning
+        # device; the
         # within-group rank is arange minus the group start (cummax over
         # the change points), reproducing the loop's ascending-slot order
         Dr = own.shape[1]
@@ -528,13 +356,17 @@ class DistributedStencilSolver:
         src = order.ravel()
         rc_cols[d_idx, a_idx, p_idx] = r_cols[a_idx, src] - d_idx * E_loc
         rc_vals[d_idx, a_idx, p_idx] = r_vals[a_idx, src]
-        p_cols = np.asarray(lvl0.p_cols)                 # (E, Dp) agg ids
-        p_vals = np.asarray(lvl0.p_vals)
+        p_cols = np.asarray(tr["p_cols"])                # (E, Dp) agg ids
+        p_vals = np.asarray(tr["p_vals"])
         l0 = dict(
             r_cols=rc_cols, r_vals=rc_vals,
             p_cols=p_cols.reshape(D, E_loc, -1).astype(np.int32),
             p_vals=p_vals.reshape(D, E_loc, *p_vals.shape[1:]).astype(dt))
         l0_specs = {k: P(_AXIS) for k in l0}
+        if factored:
+            # (3, C, U) fine block-diagonal inverse, sharded like the state
+            l0["dinv_t"] = np.asarray(self.serial._agg_fine_dinv, dt)
+            l0_specs["dinv_t"] = P(None, None, _AXIS)
 
         levels = []
         lvl_specs = []
@@ -586,6 +418,7 @@ class DistributedStencilSolver:
             specs["coarse_inv"] = P()
             specs["coarse_scale"] = P()
         meta = dict(levels=meta_lv, sweeps=h.sweeps,
+                    w=float(h.fine["w"]) if factored else None,
                     cycles=self.cfg.agg_cycles, E_loc=E_loc, Npad0=Npad0)
         return at, specs, meta
 
@@ -600,18 +433,16 @@ class DistributedStencilSolver:
                             is_leaf=lambda x: isinstance(x, P))
 
     def _put_tables(self):
-        # one batched transfer for everything (per-array puts pay a full
-        # round trip each on remote TPUs)
         def shardings_of(specs):
             return jax.tree.map(
                 lambda s: NamedSharding(self.jmesh, s),
                 self._remap_specs(specs),
                 is_leaf=lambda x: isinstance(x, P))
 
-        payload = [self.tabs, self._phase_tabs_host(), self._atabs_host]
-        specs = [self.specs, list(self._phase_specs()), self._aspecs]
-        put = jax.device_put(payload, shardings_of(specs))
-        self.tabs_dev, self.ptabs_dev, self.atabs_dev = put
+        payload = [self.tabs, self._atabs_host]
+        specs = [self.specs, self._aspecs]
+        self.tabs_dev, self.atabs_dev = jax.device_put(
+            payload, shardings_of(specs))
 
     # -- numerics (inside shard_map) ----------------------------------------
     def _bp(self, tab, b_t, with_bc):
@@ -633,60 +464,6 @@ class DistributedStencilSolver:
             precond=lambda r: _mul33(tab["Dinv_t"], r), tol=0.0,
             maxiter=self.cfg.coarse_sweeps, dot=self._pdot)
         return x_sol
-
-    # -- phase kernel on the extended domain ---------------------------------
-    def _phase_dist(self, li, ptab, x_t, bp_t, coefs, want_z: bool = True):
-        """One fused smoothing phase on this shard's extended domain.
-
-        Returns (x_new, z) interior slices; bit-exact vs the serial kernel
-        (halo rows are relaxed redundantly with identical arithmetic).
-        Rounds run in groups of ``chunk`` with a ring exchange between
-        groups — each group's interior result is bit-identical to the
-        serial kernel's state after those rounds, so refilled halos are
-        exact and chunking never changes the answer (see _build_phases).
-        """
-        ph = self._phases[li]
-        ker, He, chunk = ph["ker"], ph["He"], ph["chunk"]
-        tabs_fin, tabs_mid = ptab
-        tf = {k: v[0] for k, v in tabs_fin.items()}      # squeeze dev axis
-        if He == 0:
-            return ker.phase_with(tf, x_t, bp_t, coefs, want_z)
-        has_mid = "ker_mid" in ph and tabs_mid is not None
-        ker_m = ph.get("ker_mid")
-        He_m = ph.get("He_mid", He)
-        tm = ({k: v[0] for k, v in tabs_mid.items()} if has_mid else None)
-        # bp is loop-invariant: exchange its halo ONCE at the widest
-        # geometry; the mid geometry's window is a static center slice
-        lhb, rhb = _ring_halo(bp_t, He, self.D, axis=-1, axes=self._ax)
-        bp_ext = jnp.concatenate([lhb, bp_t, rhb], axis=-1)
-        bp_mid = (bp_ext[:, :, He - He_m:He + self.U_loc + He_m]
-                  if has_mid else None)
-        z = None
-        n = len(coefs)
-        if n == 0:
-            # pure residual evaluation (the phase-based A-apply): one
-            # exchange at the final geometry, zero relaxation rounds
-            lh, rh = _ring_halo(x_t, He, self.D, axis=-1, axes=self._ax)
-            x_ext = jnp.concatenate([lh, x_t, rh], axis=-1)
-            x_new, z = ker.phase_with(tf, x_ext, bp_ext, [], want_z)
-            return (x_new[:, :, He:He + self.U_loc],
-                    z[:, :, He:He + self.U_loc])
-        for g0 in range(0, n, chunk):
-            g = coefs[g0:g0 + chunk]
-            last = g0 + chunk >= n
-            if last or not has_mid:
-                Hg, kg, tg, bg = He, ker, tf, bp_ext
-            else:
-                # non-final chunks only advance x: k*W ghost rows suffice
-                Hg, kg, tg, bg = He_m, ker_m, tm, bp_mid
-            lh, rh = _ring_halo(x_t, Hg, self.D, axis=-1, axes=self._ax)
-            x_ext = jnp.concatenate([lh, x_t, rh], axis=-1)
-            # the residual round runs only on the final group (and only
-            # when the caller consumes z)
-            x_new, z = kg.phase_with(tg, x_ext, bg, g, want_z and last)
-            x_t = x_new[:, :, Hg:Hg + self.U_loc]
-            z = z[:, :, Hg:Hg + self.U_loc]
-        return x_t, z
 
     # -- distributed aggregation correction ----------------------------------
     def _ag(self, y_loc):
@@ -755,16 +532,22 @@ class DistributedStencilSolver:
             x = x + jnp.zeros_like(x).at[:n].set(ec)
         return self._agg_smooth(at, k, x, b_rep, sweeps)
 
-    def _agg_correct(self, at, x_t, r_t):
+    def _agg_correct(self, tab, meta, at, x_t, r_t):
         """SA correction of this level's local residual (3, C, U_loc)."""
         if self.D == 1:
-            # single-chip: the shard IS the mesh — run the serial fast
-            # path (factored transfers + banded Pallas rowops) verbatim
+            # single device: the shard IS the mesh — run the serial fast
+            # path (factored transfers) verbatim
             return self.serial._agg_correct_t(self._agg_li, x_t, r_t)
         C = r_t.shape[1]
         U_loc = r_t.shape[2]
-        r_loc = jnp.transpose(r_t, (2, 1, 0)).reshape(U_loc * C, 3)
         l0 = at["l0"]
+        w = self._ameta["w"]
+        if w is not None:
+            # factored transfers: P^T r = P_tent^T (r - w A D^-1 r)
+            A = lambda v: _apply(tab, meta, v, False, self.W, self.D,
+                                 self._ax)
+            r_t = r_t - w * A(l0["dinv_t"] * r_t)
+        r_loc = jnp.transpose(r_t, (2, 1, 0)).reshape(U_loc * C, 3)
         part = self._rowop(l0["r_cols"][0], l0["r_vals"][0], r_loc)
         rc = jax.lax.psum(part, self._ax)                # (Npad0, 3) repl.
         e = self._agg_vcycle(at, 0, rc)
@@ -774,24 +557,22 @@ class DistributedStencilSolver:
             e = e + self._agg_vcycle(at, 0, rc - self._ag(a_loc))
         e_loc = self._rowop(l0["p_cols"][0], l0["p_vals"][0], e)
         e_t = jnp.transpose(e_loc.reshape(U_loc, C, 3), (2, 1, 0))
+        if w is not None:
+            # P e = (I - w D^-1 A) P_tent e
+            e_t = e_t - w * (l0["dinv_t"] * A(e_t))
         return x_t + e_t
 
     # -- V-cycle -------------------------------------------------------------
-    def _vcycle(self, tabs, ptabs, atabs, li, x_t, b_t, hom: bool = False):
+    def _vcycle(self, tabs, atabs, li, x_t, b_t, hom: bool = False):
         cfg = self.cfg
         nl = len(tabs)
         with_bc = li == 0 and not hom
         tab, meta = tabs[li], self.meta[li]
         W, D, ax = self.W, self.D, self._ax
         bp = self._bp(tab, b_t, with_bc)
-        ph = (self._phases[li] if self._phases is not None else None)
-        pt = ptabs[li] if ph is not None else None
         agg_here = atabs is not None and li == self._agg_li
 
         def smooth(x, coefs, want_z=False):
-            if ph is not None:
-                x, z = self._phase_dist(li, pt, x, bp, coefs, want_z)
-                return (x, _mul33(tab["S_t"], z)) if want_z else x
             x = _sweep(tab, meta, x, bp, coefs, W, D, ax)
             if want_z:
                 return x, b_t - _apply(tab, meta, x, with_bc, W, D, ax)
@@ -802,7 +583,7 @@ class DistributedStencilSolver:
             # algebraic correction (fine level in amg mode, else the
             # geometric coarsest): smooth - SA-correct - smooth
             x_t, r_t = smooth(x_t, coefs, want_z=True)
-            x_t = self._agg_correct(atabs, x_t, r_t)
+            x_t = self._agg_correct(tab, meta, atabs, x_t, r_t)
             return smooth(x_t, coefs)
         if li == nl - 1:
             if nl > 1 and "coarse_inv" in tab:
@@ -816,23 +597,21 @@ class DistributedStencilSolver:
             return smooth(x_t, self._coefs_coarse)
         x_t, r_t = smooth(x_t, coefs, want_z=True)
         bc_ = semi.restrict_t(r_t, self.p.levels[li + 1]["s"])
-        e_t = self._vcycle(tabs, ptabs, atabs, li + 1,
-                           jnp.zeros_like(bc_), bc_, hom)
+        e_t = self._vcycle(tabs, atabs, li + 1, jnp.zeros_like(bc_), bc_,
+                           hom)
         if cfg.cycle_type == "w" and li < 2:
-            e_t = self._vcycle(tabs, ptabs, atabs, li + 1, e_t, bc_, hom)
+            e_t = self._vcycle(tabs, atabs, li + 1, e_t, bc_, hom)
         x_t = x_t + semi.prolong_t(e_t, self.p.levels[li + 1]["s"])
         return smooth(x_t, coefs)
 
     def _build_step(self):
         cfg = self.cfg
         in_specs = (self._xspec,
-                    self._remap_specs(
-                        (tuple(self.specs), self._phase_specs(),
-                         self._aspecs)))
+                    self._remap_specs((tuple(self.specs), self._aspecs)))
         shard_map = jax.shard_map
 
         def step_local(T_t, all_tabs):
-            tabs, ptabs, atabs = all_tabs
+            tabs, atabs = all_tabs
             tab0, meta0 = tabs[0], self.meta[0]
             ax = self._ax
             b_t = (_mul33(tab0["M_t"], T_t) / cfg.dt
@@ -845,25 +624,16 @@ class DistributedStencilSolver:
 
             if cfg.krylov:
                 # V-cycle-preconditioned Krylov with psum-reduced dots —
-                # the distributed mirror of SemiSolver._solve_system_t.
-                # With a phase kernel present the A apply rides a
-                # zero-round phase call (A x = -S z, z = -D^-1 A x),
-                # mirroring the serial _apply_t fast path
+                # the distributed mirror of SemiSolver._solve_system_t
                 from ..ops import krylov
-                ph0 = (self._phases[0] if self._phases is not None
-                       else None)
 
                 def A_lin(x):
-                    if ph0 is not None:
-                        _, z = self._phase_dist(
-                            0, ptabs[0], x, jnp.zeros_like(x), [])
-                        return -_mul33(tab0["S_t"], z)
                     return _apply(tab0, meta0, x, False, self.W, self.D,
                                   ax)
                 c = _apply(tab0, meta0, jnp.zeros_like(b_t), True,
                            self.W, self.D, ax)
                 precond = lambda r: self._vcycle(
-                    tabs, ptabs, atabs, 0, jnp.zeros_like(r), r, hom=True)
+                    tabs, atabs, 0, jnp.zeros_like(r), r, hom=True)
                 method = (krylov.pcg if not cfg.physics.advection
                           else krylov.bicgstab)
                 T_new, _, _ = method(A_lin, b_t - c, T_t, precond=precond,
@@ -873,7 +643,7 @@ class DistributedStencilSolver:
                 return T_new
 
             def cycle(x, _):
-                return self._vcycle(tabs, ptabs, atabs, 0, x, b_t), None
+                return self._vcycle(tabs, atabs, 0, x, b_t), None
             T_t, _ = jax.lax.scan(cycle, T_t, None, length=cfg.n_multigrid)
             return T_t
 
@@ -890,9 +660,7 @@ class DistributedStencilSolver:
         return jax.device_put(T, sh)
 
     def step(self, T_t):
-        return self._step(T_t, (tuple(self.tabs_dev),
-                                tuple(self.ptabs_dev),
-                                self.atabs_dev))
+        return self._step(T_t, (tuple(self.tabs_dev), self.atabs_dev))
 
     def run(self, T_t=None, ntime=None):
         if T_t is None:

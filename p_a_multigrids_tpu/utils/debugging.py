@@ -1,7 +1,7 @@
 """Debug / sanitizer mode: checkify numeric and bounds checks.
 
 The reference's only sanitizer is gfortran's ``-fbounds-check`` on a serial
-debug build (/root/reference/Makefile:8).  The TPU-native equivalent that
+debug build (/root/reference/Makefile:8).  The JAX equivalent that
 SURVEY §5 prescribes is ``jax.experimental.checkify``: the same jitted
 solver graph is instrumented so that
 

@@ -1,11 +1,11 @@
 """ctypes bridge to the optional C++ mesh-acceleration library.
 
 The reference's entire compute stack is native compiled code; in this
-framework the device compute path is JAX/XLA/Pallas and the *setup* hot path
-(neighbor topology over millions of elements) is native C++
-(native/mesh_accel.cpp), loaded here via ctypes with a NumPy fallback.
-Build with ``make -C native`` (done automatically by setup.py / on first
-import attempt).
+framework the device compute path is JAX/XLA and the *setup* hot path
+(neighbor topology over millions of elements, the gmsh reader) is native
+C++ (native/), loaded here via ctypes with a NumPy fallback.  The library
+is built from the committed sources with ``make -C native`` on first use,
+or explicitly (and forcibly) with :func:`build`.
 """
 
 from __future__ import annotations
@@ -25,17 +25,41 @@ def _root() -> str:
         os.path.abspath(__file__))))
 
 
+def _lib_path() -> str:
+    return os.path.join(_root(), "native", "libmesh_accel.so")
+
+
+def _make(force: bool) -> subprocess.CompletedProcess:
+    cmd = ["make", "-C", os.path.join(_root(), "native")]
+    if force:
+        cmd.append("-B")
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          check=False)
+
+
+def build(force: bool = True) -> bool:
+    """(Re)build native/libmesh_accel.so from the committed sources and
+    load it; ``force`` rebuilds even when a library file exists (a copied
+    binary is never trusted).  Returns whether the library is in use."""
+    global _LIB, _TRIED
+    proc = _make(force)
+    if proc.returncode != 0:
+        raise RuntimeError(f"native build failed:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    _LIB, _TRIED = None, False
+    return available()
+
+
 def _load():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = os.path.join(_root(), "native", "libmesh_accel.so")
+    path = _lib_path()
     if not os.path.exists(path):
         try:
-            subprocess.run(["make", "-C", os.path.join(_root(), "native")],
-                           capture_output=True, timeout=120, check=False)
-        except Exception:
+            _make(force=False)
+        except (OSError, subprocess.SubprocessError):
             pass
     if os.path.exists(path):
         try:

@@ -3,8 +3,8 @@
 Numeric values reproduce the rules of the reference's quadrature library
 (`/root/reference/ShapFun.F90:372-665` ``TRIQUAold``, ``:1102-1116`` the 1-D
 edge rule, and ``:219-257`` ``LAGROT`` Gauss-Legendre for quads), but are
-stored here as plain NumPy tables computed once at import: on TPU, quadrature
-is setup-time constant data that gets baked into jitted kernels as literals.
+stored here as plain NumPy tables computed once at import: quadrature is
+setup-time constant data that gets baked into jitted kernels as literals.
 
 Conventions:
 - Triangle rules return barycentric coordinates ``L`` with shape ``(ngi, 3)``

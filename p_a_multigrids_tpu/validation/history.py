@@ -88,12 +88,10 @@ def record_zoo(mesh_specs, ncycles: int = 12) -> dict:
     for path, n_split, levels in mesh_specs:
         mesh = topology.rcm_reorder(topology.from_msh(path))
         if levels == "amg":
-            cfg = production_config(n_split, dtype="float64",
-                                    pallas_phase=False)
+            cfg = production_config(n_split, dtype="float64")
             key = f"{path.rsplit('/', 1)[-1]}:s{n_split}:amg"
         else:
-            cfg = reference_active_config(n_split, levels, dtype="float64",
-                                          pallas_phase=False)
+            cfg = reference_active_config(n_split, levels, dtype="float64")
             key = f"{path.rsplit('/', 1)[-1]}:s{n_split}:l{levels}"
         out[key] = record_history(mesh, cfg, ncycles)
         out[key]["num_macro"] = mesh.num_elements

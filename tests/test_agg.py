@@ -1,5 +1,5 @@
-"""Aggregation hierarchy units: banded row-operator kernel equivalence,
-scaled bottom inverse, and hierarchy contraction."""
+"""Aggregation hierarchy units: the block row-operator, the scaled bottom
+inverse, and hierarchy contraction."""
 
 import numpy as np
 import pytest
@@ -21,29 +21,27 @@ def _random_rows(n_out, n_src, D, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(96, 96), (48, 96), (96, 48)])
-def test_rowop_kernel_matches_einsum(shape):
-    """_mk_rowop (banded Pallas SpMV on a square padded embedding) ==
-    the einsum-gather definition, including rectangular transfers."""
+def test_rowop_matches_definition(shape):
+    """The padded block-row operator (level operators AND rectangular
+    transfers) in the transposed contract (3, S) -> (3, N) == its
+    definition y[n] = sum_d vals[n, d] @ x[cols[n, d]]."""
     n_out, n_src = shape
     cols, vals = _random_rows(n_out, n_src, D=5)
-    # banded columns (the kernel's RCM assumption): clamp near the row
-    rows = np.arange(n_out)[:, None] * n_src // n_out
-    cols = np.clip(rows + (cols % 17) - 8, 0, n_src - 1)
-    op = magg._mk_rowop(cols, vals, n_out, n_src, np.float64,
-                        interpret=True)
-    x = jnp.asarray(np.random.default_rng(1).normal(size=(n_src, 3)))
-    want = np.einsum("ndij,ndj->ni", vals, np.asarray(x)[cols])
-    # transposed contract (3, S) -> (3, N): the agg cycle keeps vectors
-    # transposed end to end (std (N, 3) pads its minor dim 42x on TPU)
-    np.testing.assert_allclose(np.asarray(op(x.T)).T, want, rtol=1e-12,
+    x = np.random.default_rng(1).normal(size=(n_src, 3))
+    want = np.zeros((n_out, 3))
+    for n in range(n_out):
+        for d in range(cols.shape[1]):
+            want[n] += vals[n, d] @ x[cols[n, d]]
+    got = magg._rowop_t(jnp.asarray(cols), jnp.asarray(vals),
+                        jnp.asarray(x.T))
+    np.testing.assert_allclose(np.asarray(got).T, want, rtol=1e-12,
                                atol=1e-12)
 
 
 def test_hierarchy_correct_contracts():
     """One SA correction must reduce the residual of a smooth error."""
     mesh = topology.rcm_reorder(structured.tri_mesh(8, 8, 0.125, 0.125))
-    cfg = SemiConfig(n_split=2, multi_levels=1, dt=1e8, dtype="float64",
-                     pallas_phase=False)
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=1e8, dtype="float64")
     s = msemi.SemiSolver(msemi.build_problem(mesh, cfg))
     coords = splitting.child_coords(mesh.X, 2)
     h = magg.build_hierarchy(s._stencil[0]._data, coords,
@@ -96,7 +94,7 @@ def test_factored_fine_transfers_match_stored():
     import jax.numpy as jnp
     mesh = topology.rcm_reorder(structured.tri_mesh(8, 8, 0.125, 0.125))
     cfg = SemiConfig(n_split=2, multi_levels=1, dt=1e8, dtype="float64",
-                     amg=True, agg_strength=0.4, pallas_phase=False)
+                     amg=True, agg_strength=0.4)
     s = msemi.SemiSolver(msemi.build_problem(mesh, cfg))
     h = s._agg
     assert h is not None and h.fine is not None

@@ -31,10 +31,10 @@ def test_mode1_with_curves(tmp_path, capsys):
     float(first[0]), float(first[1])
 
 
-def test_mode9_fast_path_vtk_series(tmp_path, capsys, ref_meshdir):
+def test_mode9_fast_path_vtk_series(tmp_path, capsys, mesh_dir):
     vtu = str(tmp_path / "trace.vtu")
     out = _run(capsys, [
-        "--mode", "9", "--mesh", f"{ref_meshdir}/test_sn2.msh",
+        "--mode", "9", "--mesh", f"{mesh_dir}/test_sn2.msh",
         "--n-split", "1", "--levels", "1", "--ntime", "2",
         "--dt", "100000.0", "--vtu", vtu, "--vtk-interval", "1"])
     assert out["mode"] == 9
@@ -46,9 +46,9 @@ def test_mode9_fast_path_vtk_series(tmp_path, capsys, ref_meshdir):
         assert os.path.exists(p)
 
 
-def test_mode9_checkpoint_resume(tmp_path, capsys, ref_meshdir):
+def test_mode9_checkpoint_resume(tmp_path, capsys, mesh_dir):
     ck = str(tmp_path / "state.npz")
-    argv = ["--mode", "9", "--mesh", f"{ref_meshdir}/test_sn2.msh",
+    argv = ["--mode", "9", "--mesh", f"{mesh_dir}/test_sn2.msh",
             "--n-split", "1", "--levels", "1", "--ntime", "3",
             "--checkpoint", ck, "--checkpoint-every", "1"]
     base = _run(capsys, argv)
@@ -62,21 +62,21 @@ def test_mode9_checkpoint_resume(tmp_path, capsys, ref_meshdir):
     assert resumed["residual_history"] == []   # nothing left to do
 
 
-def test_mode10_runs(capsys, ref_meshdir):
+def test_mode10_runs(capsys, mesh_dir):
     out = _run(capsys, ["--mode", "10", "--mesh",
-                        f"{ref_meshdir}/test_sn2.msh", "--n-split", "1",
+                        f"{mesh_dir}/test_sn2.msh", "--n-split", "1",
                         "--levels", "1", "--ntime", "1",
                         "--dt", "0.0001"])
     assert out["mode"] == 10
     assert np.isfinite(out["residual"])
 
 
-def test_mode9_production_config(capsys, ref_meshdir):
+def test_mode9_production_config(capsys, mesh_dir):
     """The production solver surface through the CLI: Krylov-accelerated
-    implicit steps with W-cycles, explicit smoother knobs (VERDICT r3 #6:
-    every benched production configuration must be CLI-reachable)."""
+    implicit steps with W-cycles, explicit smoother knobs (every benched
+    production configuration must be CLI-reachable)."""
     out = _run(capsys, [
-        "--mode", "9", "--mesh", f"{ref_meshdir}/test_sn2.msh",
+        "--mode", "9", "--mesh", f"{mesh_dir}/test_sn2.msh",
         "--n-split", "2", "--levels", "2", "--ntime", "2",
         "--dt", "100000.0", "--krylov", "--krylov-tol", "1e-9",
         "--cycle-type", "w", "--cheb-degree", "4", "--n-smooth", "4",
@@ -87,20 +87,20 @@ def test_mode9_production_config(capsys, ref_meshdir):
     assert out["L1_error"] < 0.02
 
 
-def test_mode9_amg_flag(capsys, ref_meshdir):
+def test_mode9_amg_flag(capsys, mesh_dir):
     out = _run(capsys, [
-        "--mode", "9", "--mesh", f"{ref_meshdir}/test_sn2.msh",
+        "--mode", "9", "--mesh", f"{mesh_dir}/test_sn2.msh",
         "--n-split", "2", "--levels", "1", "--ntime", "3",
         "--dt", "100000.0", "--amg", "--agg-strength", "0.3",
         "--n-multigrid", "2"])
     assert out["residual_history"][-1] < out["residual_history"][0]
 
 
-def test_mode9_distributed_devices(capsys, ref_meshdir):
+def test_mode9_distributed_devices(capsys, mesh_dir):
     """--devices 2 routes mode 9 through DistributedStencilSolver on the
     virtual CPU mesh."""
     out = _run(capsys, [
-        "--mode", "9", "--mesh", f"{ref_meshdir}/test_sn2.msh",
+        "--mode", "9", "--mesh", f"{mesh_dir}/test_sn2.msh",
         "--n-split", "2", "--levels", "2", "--ntime", "2",
         "--dt", "100000.0", "--devices", "2"])
     assert out["devices"] == 2
@@ -108,11 +108,11 @@ def test_mode9_distributed_devices(capsys, ref_meshdir):
     assert out["L1_error"] < 0.05
 
 
-def test_mode9_distributed_amg_combo(capsys, ref_meshdir):
+def test_mode9_distributed_amg_combo(capsys, mesh_dir):
     """--devices with --amg: the sharded production configuration through
     the CLI (SA correction + ring halos inside shard_map)."""
     out = _run(capsys, [
-        "--mode", "9", "--mesh", f"{ref_meshdir}/test_sn2.msh",
+        "--mode", "9", "--mesh", f"{mesh_dir}/test_sn2.msh",
         "--n-split", "2", "--levels", "1", "--ntime", "2",
         "--dt", "100000.0", "--devices", "2", "--amg",
         "--agg-strength", "0.3"])
@@ -134,13 +134,13 @@ def test_mode9_expression_flags(capsys):
     assert out["residual_history"][-1] < out["residual_history"][0]
 
 
-def test_mode9_round5_knobs(capsys, ref_meshdir):
-    """--coarse-pack/--coarse-cheb-degree plumb through to SemiConfig
-    (round 5).  On this tiny mesh the dense coarse inverse engages, so
+def test_mode9_round5_knobs(capsys, mesh_dir):
+    """--coarse-pack/--coarse-cheb-degree plumb through to SemiConfig.
+    On this tiny mesh the dense coarse inverse engages, so
     packing auto-skips (protected level) and the run must still converge
     — the flags' engagement itself is pinned by tests/test_pack.py."""
     out = _run(capsys, [
-        "--mode", "9", "--mesh", f"{ref_meshdir}/test_sn2.msh",
+        "--mode", "9", "--mesh", f"{mesh_dir}/test_sn2.msh",
         "--n-split", "2", "--levels", "2", "--ntime", "2",
         "--dt", "100000.0", "--n-multigrid", "4",
         "--coarse-pack", "2", "--coarse-cheb-degree", "10",
@@ -148,11 +148,13 @@ def test_mode9_round5_knobs(capsys, ref_meshdir):
     assert np.isfinite(out["L1_error"]) and out["L1_error"] < 0.05
 
 
-def test_mode9_distributed_ghost_frac(capsys, ref_meshdir):
-    """--dist-ghost-frac reaches the sharded solver's chunking policy."""
+def test_mode9_distributed_krylov(capsys, mesh_dir):
+    """--devices with --krylov: PCG with psum-reduced dots inside
+    shard_map, through the CLI."""
     out = _run(capsys, [
-        "--mode", "9", "--mesh", f"{ref_meshdir}/test_sn2.msh",
+        "--mode", "9", "--mesh", f"{mesh_dir}/test_sn2.msh",
         "--n-split", "2", "--levels", "2", "--ntime", "1",
-        "--dt", "100000.0", "--devices", "2", "--dist-ghost-frac", "0.0"])
+        "--dt", "100000.0", "--devices", "2", "--krylov",
+        "--krylov-tol", "1e-6"])
     assert out["devices"] == 2
-    assert np.isfinite(out["L1_error"])
+    assert np.isfinite(out["L1_error"]) and out["L1_error"] < 0.05

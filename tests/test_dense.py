@@ -11,6 +11,8 @@ import jax.numpy as jnp
 from p_a_multigrids_tpu.io import checkpoint
 from p_a_multigrids_tpu.ops import dense
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def _tridiag(rng, n):
     lower = rng.normal(size=n)
@@ -91,7 +93,7 @@ def test_checkpoint_roundtrip(tmp_path):
     np.testing.assert_array_equal(extras["residual"], [1.0, 0.5])
 
 
-def test_checkpoint_resume_matches_straight_run(tmp_path):
+def test_checkpoint_resume_matches_straight_run(tmp_path, mesh_dir):
     """CLI --checkpoint: run 4 steps; rerun resuming from step 2 -> equal."""
     import json
     import subprocess
@@ -100,18 +102,18 @@ def test_checkpoint_resume_matches_straight_run(tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     ck = os.path.join(tmp_path, "run.npz")
     base = [sys.executable, "-m", "p_a_multigrids_tpu", "--mode", "9",
-            "--mesh", "/root/reference/Mesh_files/test_sn2.msh",
+            "--mesh", f"{mesh_dir}/test_sn2.msh",
             "--n-split", "1", "--levels", "1", "--cpu"]
     full = subprocess.run(base + ["--ntime", "4"], capture_output=True,
-                          text=True, env=env, cwd="/root/repo")
+                          text=True, env=env, cwd=ROOT)
     r_full = json.loads(full.stdout.strip().splitlines()[-1])
     subprocess.run(base + ["--ntime", "2", "--checkpoint", ck,
                            "--checkpoint-every", "2"],
-                   capture_output=True, text=True, env=env, cwd="/root/repo")
+                   capture_output=True, text=True, env=env, cwd=ROOT)
     resumed = subprocess.run(
         base + ["--ntime", "4", "--checkpoint", ck, "--checkpoint-every",
                 "2"], capture_output=True, text=True, env=env,
-        cwd="/root/repo")
+        cwd=ROOT)
     r_res = json.loads(resumed.stdout.strip().splitlines()[-1])
     assert r_res["resumed_from_step"] == 2
     np.testing.assert_allclose(r_res["L1_error"], r_full["L1_error"],

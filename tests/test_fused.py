@@ -9,8 +9,8 @@ from p_a_multigrids_tpu.ops import fused
 
 
 @pytest.fixture(scope="module")
-def mesh(ref_meshdir):
-    return topology.from_msh(f"{ref_meshdir}/test_sn2.msh")
+def mesh(mesh_dir):
+    return topology.from_msh(f"{mesh_dir}/test_sn2.msh")
 
 
 @pytest.mark.parametrize("phys", [

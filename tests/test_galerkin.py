@@ -11,9 +11,6 @@ from p_a_multigrids_tpu.mesh import topology
 from p_a_multigrids_tpu.models import semi as msemi
 from p_a_multigrids_tpu.ops import galerkin, stencil as mstencil
 
-MESHES = "/root/reference/Mesh_files"
-
-
 def _datas(mesh, phys, n_split=2, levels=2):
     cfg = SemiConfig(n_split=n_split, multi_levels=levels, dt=0.05,
                      physics=phys, dtype="float64")
@@ -23,10 +20,11 @@ def _datas(mesh, phys, n_split=2, levels=2):
 
 
 @pytest.mark.parametrize("name", ["test_sn2.msh", "untitled8.msh"])
-def test_galerkin_equals_geometric_for_scale_invariant_physics(name):
+def test_galerkin_equals_geometric_for_scale_invariant_physics(name,
+                                                              mesh_dir):
     """Nested P1 spaces: P^T (M/dt + theta(D - K)) P == the rescaled coarse
     assembly exactly when no surface terms are present."""
-    mesh = topology.from_msh(f"{MESHES}/{name}")
+    mesh = topology.from_msh(f"{mesh_dir}/{name}")
     phys = Physics(advection=True, u=(0.3, 0.7), surface_terms=False)
     datas, problem = _datas(mesh, phys)
     gal = galerkin.galerkin_coarse(datas[0], problem.levels[1]["s"],
@@ -39,9 +37,9 @@ def test_galerkin_equals_geometric_for_scale_invariant_physics(name):
                                rtol=1e-12, atol=1e-13)
 
 
-def test_galerkin_matches_dense_triple_product():
+def test_galerkin_matches_dense_triple_product(mesh_dir):
     """Full SIP physics: the stencil R.A.P equals the dense P^T A P."""
-    mesh = topology.from_msh(f"{MESHES}/test_sn2.msh")
+    mesh = topology.from_msh(f"{mesh_dir}/test_sn2.msh")
     phys = Physics()
     datas, problem = _datas(mesh, phys)
     n_c = problem.levels[1]["s"]
@@ -63,9 +61,9 @@ def test_galerkin_matches_dense_triple_product():
 
 
 @pytest.mark.parametrize("name", ["test_sn2.msh", "untitled8.msh"])
-def test_galerkin_vcycle_converges_at_least_as_fast(name):
-    """VERDICT gate: rho(galerkin) <= rho(geometric) * 1.05 with full SIP."""
-    mesh = topology.from_msh(f"{MESHES}/{name}")
+def test_galerkin_vcycle_converges_at_least_as_fast(name, mesh_dir):
+    """rho(galerkin) <= rho(geometric) * 1.05 with full SIP."""
+    mesh = topology.from_msh(f"{mesh_dir}/{name}")
 
     def rho(coarse_op):
         cfg = SemiConfig(n_split=2, multi_levels=2, dt=1e8, dtype="float64",

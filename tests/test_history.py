@@ -26,15 +26,15 @@ def test_committed_covers_default_specs(committed):
         assert len(committed[key]["residual_linf"]) >= 10
 
 
-def test_history_reproduces_committed(committed, ref_meshdir):
+def test_history_reproduces_committed(committed, mesh_dir):
     """Re-run one fixture and match the committed history (regression
-    pin: same solver, same mesh, same f64 arithmetic)."""
+    pin: same solver, same mesh, same f64 arithmetic).  The mesh is the
+    generated stand-in for test_sn2.msh (key prefix ``gen_``)."""
     mesh = topology.rcm_reorder(
-        topology.from_msh(f"{ref_meshdir}/test_sn2.msh"))
-    cfg = history.reference_active_config(3, 2, dtype="float64",
-                                          pallas_phase=False)
+        topology.from_msh(f"{mesh_dir}/test_sn2.msh"))
+    cfg = history.reference_active_config(3, 2, dtype="float64")
     got = history.record_history(mesh, cfg)
-    want = committed["test_sn2.msh:s3:l2"]
+    want = committed["gen_test_sn2.msh:s3:l2"]
     np.testing.assert_allclose(got["residual_linf"],
                                want["residual_linf"], rtol=1e-4)
     assert abs(got["rho"] - want["rho"]) < 1e-3
@@ -71,15 +71,14 @@ def test_histories_contract(committed):
 
 
 def test_production_amg_history_reproduces_committed(committed,
-                                                     ref_meshdir):
+                                                     mesh_dir):
     """Regression pin for the PRODUCTION configuration (full SIP +
     Chebyshev + strength-filtered SA correction of the finest level)."""
     mesh = topology.rcm_reorder(
-        topology.from_msh(f"{ref_meshdir}/test_sn2.msh"))
-    cfg = history.production_config(3, dtype="float64",
-                                    pallas_phase=False)
+        topology.from_msh(f"{mesh_dir}/test_sn2.msh"))
+    cfg = history.production_config(3, dtype="float64")
     got = history.record_history(mesh, cfg)
-    want = committed["test_sn2.msh:s3:amg"]
+    want = committed["gen_test_sn2.msh:s3:amg"]
     np.testing.assert_allclose(got["residual_linf"],
                                want["residual_linf"], rtol=1e-4)
     assert abs(got["rho"] - want["rho"]) < 1e-3

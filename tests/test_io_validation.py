@@ -7,6 +7,8 @@ from p_a_multigrids_tpu.mesh import splitting, structured
 from p_a_multigrids_tpu.ops import krylov
 from p_a_multigrids_tpu.validation import analytical, gates, probe
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def test_vtu_writer_roundtrip(tmp_path):
     mesh = structured.tri_mesh(2, 2, 1.0, 1.0)
@@ -83,7 +85,7 @@ def test_pcg_and_bicgstab():
     assert np.allclose(N @ np.asarray(x2), b, atol=1e-5)
 
 
-def test_cli_vtk_interval_series(tmp_path):
+def test_cli_vtk_interval_series(tmp_path, mesh_dir):
     """--vtk-interval writes Tracer/error/analytical VTUs per interval
     (reference vtk_interval, transport_tri_semi.F90:301-312)."""
     import json
@@ -95,10 +97,10 @@ def test_cli_vtk_interval_series(tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "p_a_multigrids_tpu", "--mode", "9",
-         "--mesh", "/root/reference/Mesh_files/test_sn2.msh",
+         "--mesh", f"{mesh_dir}/test_sn2.msh",
          "--n-split", "1", "--levels", "1", "--ntime", "4", "--cpu",
          "--vtk-interval", "2", "--vtu", base],
-        capture_output=True, text=True, env=env, cwd="/root/repo")
+        capture_output=True, text=True, env=env, cwd=ROOT)
     out = json.loads(r.stdout.strip().splitlines()[-1])
     series = out["vtu_series"]
     assert len(series) == 3          # steps 0, 2 and the final state

@@ -24,10 +24,10 @@ def test_structured_tri_mesh_topology():
                 assert mesh.dir_flag[e, f] == mesh.dir_flag[e2, f2]
 
 
-def test_gmsh_reader_and_topology(ref_meshdir):
+def test_gmsh_reader_and_topology(mesh_dir):
     # test_sn2.msh holds 12 triangles (plus 8 boundary line elements that
     # the reader filters out, Msh2Tri.F90:264-269)
-    mesh = topology.from_msh(f"{ref_meshdir}/test_sn2.msh")
+    mesh = topology.from_msh(f"{mesh_dir}/test_sn2.msh")
     assert mesh.num_elements == 12
     # every neighbor pair shares exactly 2 vertex coordinates
     for e in range(mesh.num_elements):
@@ -47,8 +47,8 @@ def test_gmsh_reader_and_topology(ref_meshdir):
     ("untitled8.msh", 8),
     ("irregular.msh", 11),
 ])
-def test_gmsh_element_counts(ref_meshdir, name, nele):
-    mesh = topology.from_msh(f"{ref_meshdir}/{name}")
+def test_gmsh_element_counts(mesh_dir, name, nele):
+    mesh = topology.from_msh(f"{mesh_dir}/{name}")
     assert mesh.num_elements == nele
 
 
@@ -63,7 +63,7 @@ def test_native_matches_python():
     assert (dirf == dirf2).all()
 
 
-def test_native_gmsh_reader_matches_python(ref_meshdir):
+def test_native_gmsh_reader_matches_python(mesh_dir):
     """C++ loader (native/gmsh_reader.cpp) == Python parser bit-for-bit
     on representative zoo meshes (the ReadMSH contract,
     Msh2Tri.F90:132-334)."""
@@ -72,7 +72,7 @@ def test_native_gmsh_reader_matches_python(ref_meshdir):
     from p_a_multigrids_tpu.mesh import gmsh
     for name in ("test_sn2.msh", "900_ele.msh", "untitled8192.msh",
                  "irregular.msh"):
-        path = f"{ref_meshdir}/{name}"
+        path = f"{mesh_dir}/{name}"
         py = gmsh._read_msh_py(path)
         v, t, r = native.read_msh(path)
         np.testing.assert_array_equal(v, py.vertices)
@@ -100,13 +100,13 @@ def test_rect_mesh():
     assert face_ele[4, 0] == 1 and face_ele[4, 2] == -1
 
 
-def test_cross_macro_tables_vectorized_matches_ref(ref_meshdir):
+def test_cross_macro_tables_vectorized_matches_ref(mesh_dir):
     """Vectorized strip matching == the loop reference implementation."""
     from p_a_multigrids_tpu.mesh import semi as msemi_mesh
 
     for name, n in (("test_sn2.msh", 2), ("untitled8.msh", 1),
                     ("irregular.msh", 3)):
-        mesh = topology.from_msh(f"{ref_meshdir}/{name}")
+        mesh = topology.from_msh(f"{mesh_dir}/{name}")
         fast = msemi_mesh._cross_macro_tables(mesh, n)
         ref = msemi_mesh._cross_macro_tables_ref(mesh, n)
         np.testing.assert_array_equal(fast[0], ref[0])  # neigh_elem

@@ -1,11 +1,9 @@
 """Macro-packed coarse levels (ops.stencil.pack_stencil, cfg.coarse_pack).
 
 Packing re-indexes a level as (U/p packs) x (p*C children) — a pure
-relabeling of the same operator, aimed at the fused phase kernel's
-per-grid-step floor (the C=4 geometric coarse level is nearly pure step
-latency, docs/PROFILE_r4.md).  These tests pin the relabeling's exactness:
-operator application and the phase kernel are BIT-identical under packing,
-and the full solver (coarse_pack=4) reproduces the unpacked solver.
+relabeling of the same operator.  These tests pin the relabeling's
+exactness: operator application is BIT-identical under packing, and the
+full solver (coarse_pack=4) reproduces the unpacked solver.
 """
 
 import jax
@@ -56,26 +54,6 @@ def test_pack_lam_max_identical():
     assert op_u.lam_max_estimate() == op_p.lam_max_estimate()
 
 
-def test_pack_phase_kernel_bitexact():
-    """Fused phase kernel on the packed level (F = 3p strip face groups)
-    == unpacked kernel, bit for bit (interpret mode)."""
-    from p_a_multigrids_tpu.ops import pallas_stencil as ps
-    _, op_u, op_p = _coarse_pair()
-    ph_u = ps.make_phase(op_u, interpret=True, impl="coef_resident")
-    ph_p = ps.make_phase(op_p, interpret=True, impl="coef_resident")
-    assert ph_p.F == 12
-    rng = np.random.default_rng(2)
-    x = jnp.asarray(rng.normal(size=(3, 4, 128)))
-    bp = jnp.asarray(rng.normal(size=(3, 4, 128)))
-    coefs = [0.8, 0.7, 0.9]
-    xu, zu = ph_u.phase(x, bp, coefs)
-    xp, zp = ph_p.phase(msemi.pack_x_t(x, 4), msemi.pack_x_t(bp, 4), coefs)
-    np.testing.assert_array_equal(
-        np.asarray(msemi.unpack_x_t(xp, 4)), np.asarray(xu))
-    np.testing.assert_array_equal(
-        np.asarray(msemi.unpack_x_t(zp, 4)), np.asarray(zu))
-
-
 def test_pack_rejects_bad_shapes():
     _, op_u, _ = _coarse_pair()
     with pytest.raises(ValueError):
@@ -86,7 +64,8 @@ def test_pack_rejects_bad_shapes():
 
 
 @pytest.mark.parametrize("extra", [
-    {}, {"pallas_phase": True}, {"cycle_type": "w"},
+    {}, {"coarse_cheb_degree": 8, "coarse_cheb_lower": 0.02},
+    {"cycle_type": "w"},
     {"multi_levels": 3, "n_split": 3}, {"coarse_krylov": True}])
 def test_pack_solver_end_to_end(extra):
     """coarse_pack=4 solver == unpacked solver (same Chebyshev roots by

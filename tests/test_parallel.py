@@ -46,13 +46,13 @@ def test_halo_plan_consistency():
 
 @pytest.mark.parametrize("solver_kind", [Solver.CHEBYSHEV,
                                          Solver.BLOCK_JACOBI])
-def test_distributed_matches_serial(ref_meshdir, solver_kind):
+def test_distributed_matches_serial(mesh_dir, solver_kind):
     """shard_map solver over 8 CPU devices reproduces the serial solver to
     machine precision (the 'same-values-as-serial' multi-node assertion,
     SURVEY.md section 4)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    mesh = topology.from_msh(f"{ref_meshdir}/test_sn2.msh")
+    mesh = topology.from_msh(f"{mesh_dir}/test_sn2.msh")
     cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.05, ntime=2,
                      n_multigrid=2, solver=solver_kind, dtype="float64")
     dist = DistributedSemiSolver(mesh, cfg)
@@ -182,39 +182,14 @@ def test_stencil_solver_deep_split_rowgather():
                     n_dev=4)
 
 
-def test_stencil_solver_pallas_phase_matches_serial():
-    """PRODUCTION fast path inside shard_map: the fused Pallas phase
-    kernels run per-shard on extended domains (deep ghost zones) and the
-    result is bit-exact vs the serial kernel (VERDICT r3 #1a)."""
-    cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.5, ntime=1,
-                     n_multigrid=2, pallas_phase=True, dtype="float64")
-    _stencil_parity(cfg, n_dev=4)
-
-
-def test_stencil_solver_pallas_phase_wcycle():
-    cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.5, ntime=1,
-                     n_multigrid=1, cycle_type="w", pallas_phase=True,
-                     dtype="float64")
-    _stencil_parity(cfg, n_dev=2)
-
-
 def test_stencil_solver_amg_matches_serial():
     """amg=True inside shard_map: partial-product + psum restriction,
-    row-sharded aggregation levels (VERDICT r3 #1b).  psum changes the
+    row-sharded aggregation levels.  psum changes the
     level-0 restriction's summation order, so compare at 1e-9, not
     bit-exactness."""
     cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.5, ntime=1,
                      n_multigrid=2, amg=True, agg_strength=0.3,
                      dtype="float64")
-    _stencil_parity(cfg, n_dev=4, atol=1e-9, rtol=1e-9)
-
-
-def test_stencil_solver_amg_with_pallas_phase():
-    """The full production configuration: fused Pallas phases AND the SA
-    correction, sharded."""
-    cfg = SemiConfig(n_split=2, multi_levels=1, dt=1e8, ntime=2,
-                     n_multigrid=2, amg=True, agg_strength=0.3,
-                     pallas_phase=True, dtype="float64")
     _stencil_parity(cfg, n_dev=4, atol=1e-9, rtol=1e-9)
 
 
@@ -227,20 +202,9 @@ def test_stencil_solver_coarse_agg_matches_serial():
     _stencil_parity(cfg, n_dev=4, atol=1e-9, rtol=1e-9)
 
 
-def test_stencil_solver_pallas_multihop_halo():
-    """Pallas phases + ghost zones spanning MULTIPLE shards: 8 devices on
-    32 macros leaves U_loc=4 << He, so the extended-domain exchange needs
-    k-hop ring halos (wrap blocks land only on clamped rows)."""
-    mesh = structured.tri_mesh(8, 2, 0.25, 0.25)       # U = 32
-    cfg = SemiConfig(n_split=1, multi_levels=1, dt=0.5, ntime=1,
-                     n_multigrid=1, n_smooth=2, cheb_degree=2,
-                     pallas_phase=True, dtype="float64")
-    _stencil_parity(cfg, mesh=mesh, n_dev=8)
-
-
 def test_stencil_solver_wide_window_many_devices():
-    """W > U_loc no longer hard-fails: k-hop ring halos cover any window
-    (VERDICT r3 #7).  8 devices on a 24-macro mesh leaves U_loc=3 << W."""
+    """W > U_loc: k-hop ring halos cover any window.  8 devices on a
+    24-macro mesh leaves U_loc=3 << W."""
     mesh = structured.tri_mesh(4, 3, 0.25, 0.25)       # U = 24
     cfg = SemiConfig(n_split=1, multi_levels=1, dt=0.5, ntime=1,
                      n_multigrid=1, dtype="float64")
@@ -248,8 +212,8 @@ def test_stencil_solver_wide_window_many_devices():
 
 
 def test_stencil_solver_2d_mesh_bitexact():
-    """2-D (hosts, chips) device mesh — the multi-host/DCN axis of
-    SURVEY §5 (reference partitioning seam: Generic.F90:387-405).  The
+    """2-D (hosts, chips) device mesh — the multi-host axis of SURVEY §5
+    (reference partitioning seam: Generic.F90:387-405).  The
     RCM ring flattens row-major over ("host", "dp") and every collective
     runs over the axis tuple; the result must be BIT-identical to both
     the serial solver and the 1-D mesh (geometric config: no psum
@@ -262,7 +226,7 @@ def test_stencil_solver_2d_mesh_bitexact():
         pytest.skip("needs 8 devices")
     mesh = structured.tri_mesh(16, 4, 0.25, 0.25)
     cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.5, ntime=2,
-                     n_multigrid=2, pallas_phase=True, dtype="float64")
+                     n_multigrid=2, dtype="float64")
     d2 = _stencil_parity(cfg, mesh=mesh, n_dev=8, mesh_shape=(2, 4))
     d1 = DistributedStencilSolver(mesh, cfg, devices=jax.devices()[:8])
     out1 = d1.run(d1.initial_condition())
@@ -271,97 +235,43 @@ def test_stencil_solver_2d_mesh_bitexact():
 
 
 def test_stencil_solver_2d_mesh_production_amg():
-    """The full production configuration (fused Pallas phases + sharded
-    SA correction + psum-dot Krylov machinery) on the (2, 4) mesh."""
+    """The production configuration (sharded SA correction) on the
+    (2, 4) mesh."""
     cfg = SemiConfig(n_split=2, multi_levels=1, dt=1e8, ntime=2,
                      n_multigrid=2, amg=True, agg_strength=0.3,
-                     pallas_phase=True, dtype="float64")
+                     dtype="float64")
     _stencil_parity(cfg, n_dev=8, mesh_shape=(2, 4), atol=1e-9, rtol=1e-9)
 
 
-def test_stencil_solver_chunked_vs_deep_ghost():
-    """Chunked phase execution (dist_ghost_max_frac -> chunk=1) and the
-    classic one-message deep ghost (frac huge -> single chunk) produce
-    BIT-identical results: chunk boundaries refill halos from interiors
-    that are themselves bit-exact vs the serial kernel."""
-    import dataclasses
-    import jax
-    from p_a_multigrids_tpu.parallel.stencil_solver import (
-        DistributedStencilSolver)
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 devices")
-    mesh = structured.tri_mesh(16, 4, 0.25, 0.25)
-    base = SemiConfig(n_split=2, multi_levels=2, dt=0.5, ntime=1,
-                      n_multigrid=2, pallas_phase=True, dtype="float64")
-    outs = {}
-    reports = {}
-    for frac in (0.0, 1e9):
-        cfg = dataclasses.replace(base, dist_ghost_max_frac=frac)
-        dist = DistributedStencilSolver(mesh, cfg,
-                                        devices=jax.devices()[:4])
-        outs[frac] = dist.to_std(dist.run(dist.initial_condition()))
-        reports[frac] = dist.ghost_report()
-    # the cap actually changed the execution shape
-    assert reports[0.0][0]["chunk"] == 1
-    assert reports[0.0][0]["n_exchanges"] > 1
-    assert reports[1e9][0]["n_exchanges"] == 1
-    assert reports[1e9][0]["He"] > reports[0.0][0]["He"]
-    np.testing.assert_array_equal(outs[0.0], outs[1e9])
-
-
-def test_ghost_report_fields():
-    """ghost_report quantifies the deep-ghost redundancy per level
-    (VERDICT r4 #1): final-chunk He = (chunk+1)*W (capped), mid-chunk
-    He_mid = chunk*W, redundant_frac = the round-averaged 2*He/U_loc."""
-    import jax
-    from p_a_multigrids_tpu.parallel.stencil_solver import (
-        DistributedStencilSolver)
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 devices")
-    mesh = structured.tri_mesh(16, 4, 0.25, 0.25)
-    cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.5, ntime=1,
-                     n_multigrid=1, pallas_phase=True, dtype="float64")
-    dist = DistributedStencilSolver(mesh, cfg, devices=jax.devices()[:4])
-    rep = dist.ghost_report()
-    assert len(rep) == 2
-    for lv in rep:
-        assert lv["He"] <= (lv["chunk"] + 1) * lv["W"]
-        assert lv["He_mid"] <= lv["He"]
-        # averaged redundancy lies between the mid and final geometries
-        assert (round(2 * lv["He_mid"] / lv["U_loc"], 4) - 1e-9
-                <= lv["redundant_frac"]
-                <= round(2 * lv["He"] / lv["U_loc"], 4) + 1e-9)
-        assert lv["n_exchanges"] == -(-lv["rounds"] // lv["chunk"])
-
-
-def test_chunked_mid_geometry_bitexact():
-    """The two-geometry chunking (He_mid = k*W for x-only chunks,
-    (k+1)*W for the final residual chunk) is bit-identical to the serial
-    solver — ghost rows at depth k*W are exactly enough for k rounds."""
-    import dataclasses
-    import jax
-    from p_a_multigrids_tpu.parallel.stencil_solver import (
-        DistributedStencilSolver)
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 devices")
-    mesh = structured.tri_mesh(16, 4, 0.25, 0.25)
-    cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.5, ntime=1,
-                     n_multigrid=2, pallas_phase=True,
-                     dist_ghost_max_frac=0.0, dtype="float64")
-    dist = _stencil_parity(cfg, mesh=mesh, n_dev=4)
-    rep = dist.ghost_report()
-    # the mid geometry actually engaged
-    assert any(lv and lv["He_mid"] < lv["He"] for lv in rep)
-
-
-def test_stencil_solver_krylov_phase_apply():
-    """Distributed Krylov with pallas phases: the A apply rides a
-    zero-round phase call (A x = -S z) — mirror of the serial
-    SemiSolver._apply_t fast path; parity at Krylov tolerance."""
-    cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.5, ntime=1,
-                     krylov=True, krylov_tol=1e-10, pallas_phase=True,
-                     dtype="float64")
-    _stencil_parity(cfg, n_dev=4, atol=1e-8, rtol=1e-8)
+@pytest.mark.parametrize("case", [
+    # two-level geometric cycle on a 4-device ring
+    dict(cfg=dict(n_split=2, multi_levels=2, dt=0.5, ntime=1,
+                  n_multigrid=2), n_dev=4),
+    # W-cycle on a 2-device ring
+    dict(cfg=dict(n_split=2, multi_levels=2, dt=0.5, ntime=1,
+                  n_multigrid=1, cycle_type="w"), n_dev=2),
+    # steady amg over two time steps (psum restriction order -> 1e-9)
+    dict(cfg=dict(n_split=2, multi_levels=1, dt=1e8, ntime=2,
+                  n_multigrid=2, amg=True, agg_strength=0.3), n_dev=4,
+         tol=1e-9),
+    # halo windows spanning several shards: U_loc = 4 on 8 devices
+    dict(cfg=dict(n_split=1, multi_levels=1, dt=0.5, ntime=1,
+                  n_multigrid=1, n_smooth=2, cheb_degree=2), n_dev=8,
+         mesh=(8, 2)),
+    # Krylov on a 4-device ring (iteration counts may differ by one)
+    dict(cfg=dict(n_split=2, multi_levels=2, dt=0.5, ntime=1, krylov=True,
+                  krylov_tol=1e-10), n_dev=4, tol=1e-8),
+    # the production implicit path: amg-preconditioned PCG, sharded
+    dict(cfg=dict(n_split=2, multi_levels=1, dt=0.05, ntime=1, amg=True,
+                  agg_strength=0.5, cheb_degree=16, cheb_lower=0.05,
+                  krylov=True, krylov_tol=1e-10), n_dev=4, tol=1e-8),
+], ids=["geometric-4dev", "wcycle-2dev", "amg-steady-4dev",
+        "multihop-halo-8dev", "krylov-4dev", "amg-pcg-4dev"])
+def test_stencil_solver_parity_configs(case):
+    """Distinct sharded configurations == the serial solver."""
+    mesh = (structured.tri_mesh(*case["mesh"], 0.25, 0.25)
+            if "mesh" in case else None)
+    tol = case.get("tol")
+    kw = dict(atol=tol, rtol=tol) if tol else {}
+    _stencil_parity(SemiConfig(dtype="float64", **case["cfg"]), mesh=mesh,
+                    n_dev=case["n_dev"], **kw)

@@ -9,8 +9,8 @@ from p_a_multigrids_tpu.models import semi as msemi
 
 
 @pytest.fixture(scope="module")
-def mesh(ref_meshdir):
-    return topology.from_msh(f"{ref_meshdir}/test_sn2.msh")
+def mesh(mesh_dir):
+    return topology.from_msh(f"{mesh_dir}/test_sn2.msh")
 
 
 def test_prolong_reproduces_linear_fields():
@@ -202,7 +202,7 @@ def test_amg_mode_beats_geometric_on_anisotropic_mesh():
     anisotropy and contracts fast."""
     mesh = structured.tri_mesh(24, 4, 1.0 / 24, 0.1 / 4)
     base = dict(n_split=2, dt=1e8, ntime=1, n_multigrid=1,
-                dtype="float64", pallas_phase=False)
+                dtype="float64")
     geo = msemi.SemiSolver(msemi.build_problem(
         mesh, SemiConfig(multi_levels=2, **base)))
     amg = msemi.SemiSolver(msemi.build_problem(
@@ -217,7 +217,7 @@ def test_amg_mode_beats_geometric_on_anisotropic_mesh():
 def test_amg_mode_gate(mesh):
     """amg=True solves the manufactured problem through the gate."""
     cfg = SemiConfig(n_split=2, multi_levels=1, amg=True, dt=1e8, ntime=2,
-                     n_multigrid=8, dtype="float64", pallas_phase=False)
+                     n_multigrid=8, dtype="float64")
     solver, T = msemi.solve(mesh, cfg)
     assert float(np.asarray(solver.error(T)).mean()) < 0.01
 
@@ -227,8 +227,7 @@ def test_agg_strength_semicoarsens():
     (the aggregation becomes directional)."""
     from p_a_multigrids_tpu.ops import agg as magg
     mesh = structured.tri_mesh(16, 2, 1.0 / 16, 0.05 / 2)
-    cfg = SemiConfig(n_split=1, multi_levels=1, dt=1e8, dtype="float64",
-                     pallas_phase=False)
+    cfg = SemiConfig(n_split=1, multi_levels=1, dt=1e8, dtype="float64")
     s = msemi.SemiSolver(msemi.build_problem(mesh, cfg))
     A, E = magg._csr_from_stencil(s._stencil[0]._data)
     adj_all = magg._element_graph(A, E, strength=0.0)

@@ -125,13 +125,13 @@ def test_flat_adjacency_continuity_structured(n):
 
 
 @pytest.mark.parametrize("n", [1, 2])
-def test_flat_adjacency_continuity_gmsh(ref_meshdir, n):
-    mesh = topology.from_msh(f"{ref_meshdir}/test_sn2.msh")
+def test_flat_adjacency_continuity_gmsh(mesh_dir, n):
+    mesh = topology.from_msh(f"{mesh_dir}/test_sn2.msh")
     _painted_continuity(mesh, n)
 
 
-def test_bc_faces_on_domain_boundary(ref_meshdir):
-    mesh = topology.from_msh(f"{ref_meshdir}/test_sn2.msh")
+def test_bc_faces_on_domain_boundary(mesh_dir):
+    mesh = topology.from_msh(f"{mesh_dir}/test_sn2.msh")
     grid = semi.build_grid(mesh, n_split=2, multi_levels=2)
     for lvl in grid.levels:
         m = 2 ** lvl.n

@@ -11,7 +11,6 @@ from p_a_multigrids_tpu.models import semi as msemi
 from p_a_multigrids_tpu.ops import stencil as mstencil
 from p_a_multigrids_tpu.ops.fused import from_t, to_t
 
-MESH = "/root/reference/Mesh_files/test_sn2.msh"
 
 
 def _physics(name):
@@ -30,8 +29,8 @@ def _physics(name):
 @pytest.mark.parametrize("phys_name", ["diffusion", "advect_diffuse",
                                        "no_surface", "penalty_only"])
 @pytest.mark.parametrize("n_split", [1, 2])
-def test_stencil_matches_apply_A(phys_name, n_split, builder):
-    mesh = topology.from_msh(MESH)
+def test_stencil_matches_apply_A(phys_name, n_split, builder, mesh_dir):
+    mesh = topology.from_msh(f"{mesh_dir}/test_sn2.msh")
     cfg = SemiConfig(n_split=n_split, multi_levels=1, dt=0.05,
                      physics=_physics(phys_name), dtype="float64")
     if phys_name in ("diffusion", "advect_diffuse"):
@@ -63,9 +62,9 @@ def test_stencil_matches_apply_A(phys_name, n_split, builder):
 
 @pytest.mark.parametrize("phys_name", ["diffusion", "advect_diffuse",
                                        "no_surface", "penalty_only"])
-def test_analytic_blocks_equal_probed_blocks(phys_name):
+def test_analytic_blocks_equal_probed_blocks(phys_name, mesh_dir):
     """build_stencil (closed form) == probe_stencil (numerical) blockwise."""
-    mesh = topology.from_msh(MESH)
+    mesh = topology.from_msh(f"{mesh_dir}/test_sn2.msh")
     cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05,
                      physics=_physics(phys_name), dtype="float64")
     if phys_name == "advect_diffuse":
@@ -84,9 +83,9 @@ def test_analytic_blocks_equal_probed_blocks(phys_name):
                                       getattr(probed, field))
 
 
-def test_premultiplied_sweep_matches_block_jacobi():
+def test_premultiplied_sweep_matches_block_jacobi(mesh_dir):
     """One smoother sweep equals x + w D^-1 (b - A x) with exact D blocks."""
-    mesh = topology.from_msh(MESH)
+    mesh = topology.from_msh(f"{mesh_dir}/test_sn2.msh")
     cfg = SemiConfig(n_split=1, multi_levels=1, dt=0.05, dtype="float64")
     problem = msemi.build_problem(mesh, cfg)
     L = problem.levels[0]
@@ -109,8 +108,8 @@ def test_premultiplied_sweep_matches_block_jacobi():
                                atol=1e-12)
 
 
-def test_lam_max_close_to_device_estimate():
-    mesh = topology.from_msh(MESH)
+def test_lam_max_close_to_device_estimate(mesh_dir):
+    mesh = topology.from_msh(f"{mesh_dir}/test_sn2.msh")
     cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05, dtype="float64")
     problem = msemi.build_problem(mesh, cfg)
     L = problem.levels[0]

@@ -34,7 +34,7 @@ def test_steady_mixed_bc_exact():
 
 
 @pytest.mark.parametrize("fixture", ["generated_strip", "zoo"])
-def test_breakthrough_erfc_gate(fixture, ref_meshdir):
+def test_breakthrough_erfc_gate(fixture, mesh_dir):
     """The reference's erfc advection-diffusion validation at L1 < 0.01
     (Check_thermal_analytical_validation.py gate, mode-6 capability).
 
@@ -47,7 +47,7 @@ def test_breakthrough_erfc_gate(fixture, ref_meshdir):
         mesh, x_len = _strip(60, 3), 2.0
         setup = transport.BreakthroughSetup()
     else:
-        mesh = topology.from_msh(f"{ref_meshdir}/P_structured_mesh.msh")
+        mesh = topology.from_msh(f"{mesh_dir}/P_structured_mesh.msh")
         x_len = 1.0
         # shorter horizon: on the zoo's [0, 1] column the t=0.1 front
         # reaches the Dirichlet outlet, which the semi-infinite erfc
@@ -70,9 +70,9 @@ def test_breakthrough_erfc_gate(fixture, ref_meshdir):
     assert abs(sampled[0] - 1.0) < 0.01
 
 
-def test_explicit_advection_unstructured(ref_meshdir):
+def test_explicit_advection_unstructured(mesh_dir):
     """Explicit DG advection on a gmsh mesh: bounded, mass transported."""
-    mesh = topology.from_msh(f"{ref_meshdir}/900_ele.msh")
+    mesh = topology.from_msh(f"{mesh_dir}/900_ele.msh")
     fns = ProblemFns(
         bc=lambda x, y: np.zeros_like(np.asarray(x)),
         ic=lambda x, y: np.exp(-60.0 * ((np.asarray(x) - 0.3) ** 2
